@@ -6,7 +6,7 @@
 #include <stdio.h>
 #include <string.h>
 
-#include "block_aligner_tpu.h"
+#include "block_aligner_jax.h"
 
 void example1(void) {
   /* global seq-seq alignment */
@@ -86,7 +86,7 @@ void example2(void) {
 }
 
 void example3(void) {
-  /* batched TPU dispatch */
+  /* batched device dispatch */
   const char* qs[3] = {"CAGGATTAGCGGATCACG", "MKVLAT", "AAAA"};
   const char* rs[3] = {"CTGGAGTCTTTTAGCGGATCACGC", "MKVIAT", "RRRR"};
   int32_t scores[3];
@@ -167,7 +167,7 @@ void example5(void) {
 }
 
 int main(void) {
-  if (block_tpu_init() != 0) {
+  if (block_jax_init() != 0) {
     fprintf(stderr, "init failed\n");
     return 1;
   }

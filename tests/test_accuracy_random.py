@@ -4,8 +4,8 @@ of the reference accuracy harness (reference: examples/accuracy.rs)."""
 import numpy as np
 import pytest
 
-from block_aligner_tpu import BLOSUM62, BlockOracle, Gaps, NW1, PaddedBytes
-from block_aligner_tpu.core.full_dp import global_align_score
+from block_aligner_jax import BLOSUM62, BlockOracle, Gaps, NW1, PaddedBytes
+from block_aligner_jax.core.full_dp import global_align_score
 
 AA = b"ACDEFGHIKLMNPQRSTVWY"
 DNA = b"ACGT"
@@ -138,7 +138,7 @@ def test_cigar_consistency_random():
     rng = np.random.default_rng(7)
     gaps = Gaps(open=-2, extend=-1)
     a = BlockOracle(trace=True)
-    from block_aligner_tpu import Operation
+    from block_aligner_jax import Operation
 
     for _ in range(10):
         q = rand_seq(rng, DNA, 60)

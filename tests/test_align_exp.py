@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from block_aligner_tpu import BLOSUM62, BlockOracle, Gaps, PaddedBytes
-from block_aligner_tpu.api import align_exp_all
-from block_aligner_tpu.core.full_dp import global_align_score
+from block_aligner_jax import BLOSUM62, BlockOracle, Gaps, PaddedBytes
+from block_aligner_jax.api import align_exp_all
+from block_aligner_jax.core.full_dp import global_align_score
 
 AA = b"ACDEFGHIKLMNPQRSTVWY"
 

@@ -2,7 +2,9 @@
 
 import numpy as np
 
-from block_aligner_tpu import (
+import pytest
+
+from block_aligner_jax import (
     AAProfile,
     BatchAligner,
     BLOSUM62,
@@ -12,6 +14,7 @@ from block_aligner_tpu import (
     PaddedBytes,
     ProfileAligner,
 )
+from block_aligner_jax.api import pick_route
 
 
 def oracle(q, r, matrix, gaps, size, trace=False, x_drop=None):
@@ -47,8 +50,10 @@ def test_batch_aligner_trace_cigars():
 
 def test_batch_aligner_lane_routing():
     gaps = Gaps(open=-2, extend=-1)
-    al = BatchAligner(NW1, gaps, size=(16, 16), batch=128, seq_cap=100)
-    assert al._lane  # fixed-size global no-trace -> lane kernel
+    al = BatchAligner(NW1, gaps, size=(16, 16), batch=8, seq_cap=100)
+    # fixed-size global no-trace: the CUDA kernel on a GPU, the engine here
+    assert al.route == "engine"
+    assert pick_route(16, 16, backend="gpu") == "cuda"
     rng = np.random.default_rng(3)
     pairs = []
     for _ in range(5):
@@ -65,9 +70,8 @@ def test_batch_aligner_lane_routing():
 
 def test_align_all_pipelined_multibatch():
     """align_all with >1 chunk uses the stage/dispatch/decode pipeline
-    (pack of batch k+1 overlaps device compute of batch k); results and
-    last_suspect must match the sequential align_batch loop and oracle,
-    sorted or not."""
+    (pack of batch k+1 overlaps device compute of batch k); results must
+    match the sequential align_batch loop and the oracle, sorted or not."""
     gaps = Gaps(open=-11, extend=-1)
     rng = np.random.default_rng(11)
     aa = list(b"ACDEFGHIKLMNPQRSTVWY")
@@ -80,29 +84,23 @@ def test_align_all_pipelined_multibatch():
             r[p] = aa[int(rng.integers(0, 20))]
         pairs.append((q, bytes(r)))
 
-    for size in [(32, 32), (16, 32)]:  # lane kernel / adaptive kernel
+    for size in [(32, 32), (16, 32)]:  # fixed block / adaptive
         al = BatchAligner(BLOSUM62, gaps, size=size, batch=8, seq_cap=128)
         for sort in (True, False):
             res = al.align_all(pairs, sort=sort)
-            sus = al.last_suspect if al._lane else None
             for k, (q, r) in enumerate(pairs):
                 o = oracle(q, r, BLOSUM62, gaps, size)
                 assert res[k].score == o.res().score, (size, sort, k)
             seq = []
-            fl = []
             for k in range(0, len(pairs), 8):
                 seq.extend(al.align_batch(pairs[k : k + 8]))
-                if al._lane:
-                    fl.append(al.last_suspect)
             assert [x.score for x in res] == [x.score for x in seq]
-            if sus is not None and not sort:
-                assert np.array_equal(sus, np.concatenate(fl))
 
 
 def test_batch_aligner_x_drop_engine():
     gaps = Gaps(open=-11, extend=-1)
     al = BatchAligner(BLOSUM62, gaps, size=(16, 32), batch=2, seq_cap=128, x_drop=50)
-    assert not al._lane
+    assert al.route == "engine"
     q, r = b"MKVLATGQHEWVKL", b"MKVLATGQHEWVKL"
     res = al.align_batch([(q, r)])
     o = oracle(q, r, BLOSUM62, gaps, (16, 32), x_drop=50)
@@ -126,9 +124,11 @@ def test_profile_aligner():
 
 def test_batch_aligner_x_drop_lane():
     gaps = Gaps(open=-11, extend=-1)
-    al = BatchAligner(BLOSUM62, gaps, size=(32, 32), batch=128, seq_cap=200,
+    al = BatchAligner(BLOSUM62, gaps, size=(32, 32), batch=8, seq_cap=200,
                       x_drop=50)
-    assert al._lane  # fixed-size x-drop routes to the lane kernel
+    # fixed-size x-drop: the CUDA kernel on a GPU, the engine here
+    assert al.route == "engine"
+    assert pick_route(32, 32, backend="gpu") == "cuda"
     rng = np.random.default_rng(41)
     pairs = []
     for _ in range(6):
@@ -153,22 +153,22 @@ def test_staged_execution_matches_align_batch():
     gaps = Gaps(open=-11, extend=-1)
     pairs = [(b"CAGGATTAGCGGATCACG", b"CTGGAGTCTTTTAGCGGATCACGC"),
              (b"MKVLAT", b"MKVIATQ")]
-    # lane path
-    al = BatchAligner(BLOSUM62, gaps, size=(32, 32), batch=128, seq_cap=128)
+    # fixed block
+    al = BatchAligner(BLOSUM62, gaps, size=(32, 32), batch=4, seq_cap=128)
     st = al.stage(pairs)
     a = al.align_staged(st)
     b = al.align_batch(pairs)
     assert [(r.score, r.query_idx, r.reference_idx) for r in a] == [
         (r.score, r.query_idx, r.reference_idx) for r in b]
-    # engine path
+    # adaptive
     al2 = BatchAligner(BLOSUM62, gaps, size=(16, 32), batch=4, seq_cap=128)
     st2 = al2.stage(pairs)
     a2 = al2.align_staged(st2)
     b2 = al2.align_batch(pairs)
     assert [(r.score, r.query_idx, r.reference_idx) for r in a2] == [
         (r.score, r.query_idx, r.reference_idx) for r in b2]
-    # lane x-drop path
-    al3 = BatchAligner(BLOSUM62, gaps, size=(32, 32), batch=128, seq_cap=128,
+    # fixed-block x-drop
+    al3 = BatchAligner(BLOSUM62, gaps, size=(32, 32), batch=4, seq_cap=128,
                        x_drop=50)
     st3 = al3.stage(pairs)
     a3 = al3.align_staged(st3)
@@ -178,9 +178,9 @@ def test_staged_execution_matches_align_batch():
 
 
 def test_profile_aligner_lane_path():
-    """ProfileAligner routes fixed-block score-only PSSM batches to the
-    lane kernel; results match the engine path and the oracle."""
-    from block_aligner_tpu import AAProfile, ProfileAligner
+    """ProfileAligner fixed-block score-only PSSM batches: results match
+    the oracle."""
+    from block_aligner_jax import AAProfile, ProfileAligner
 
     rng = np.random.default_rng(47)
     AA = b"ACDEFGHIKLMNPQRSTVWY"
@@ -202,22 +202,20 @@ def test_profile_aligner_lane_path():
         q = bytes(rng.choice(list(AA), size=int(rng.integers(10, 90))).tolist())
         pairs.append((q, rand_profile(n)))
 
-    lane = ProfileAligner(size=(32, 32), batch=128, seq_cap=160)
-    assert lane._lane
-    eng = ProfileAligner(size=(32, 32), batch=16, seq_cap=160,
-                         use_lane_kernel=False)
-    got = lane.align_batch(pairs)
-    want = eng.align_batch(pairs)
-    for k in range(len(pairs)):
-        assert got[k].score == want[k].score, (k, got[k], want[k])
-        assert (got[k].query_idx, got[k].reference_idx) == (
-            want[k].query_idx, want[k].reference_idx), k
+    pa = ProfileAligner(size=(32, 32), batch=16, seq_cap=160)
+    assert pa.route == "engine"
+    got = pa.align_batch(pairs)
+    orc = BlockOracle()
+    for k, (q, prof) in enumerate(pairs):
+        orc.align_profile(PaddedBytes.from_bytes(q, 32, prof), prof,
+                          (32, 32), 0)
+        assert got[k] == orc.res(), (k, got[k], orc.res())
 
 
 def test_profile_aligner_lane_trace_and_xdrop():
-    """ProfileAligner lane routing for trace and x-drop profile modes
-    matches the engine path (scores, end positions, CIGARs)."""
-    from block_aligner_tpu import AAProfile, ProfileAligner
+    """ProfileAligner fixed-block trace and x-drop profile modes match the
+    oracle (scores, end positions, CIGARs)."""
+    from block_aligner_jax import AAProfile, ProfileAligner
 
     rng = np.random.default_rng(53)
     AA = b"ACDEFGHIKLMNPQRSTVWY"
@@ -239,28 +237,26 @@ def test_profile_aligner_lane_trace_and_xdrop():
         q = bytes(rng.choice(list(AA), size=int(rng.integers(10, 80))).tolist())
         pairs.append((q, rand_profile(n)))
 
-    # x-drop parity
-    lane = ProfileAligner(size=(32, 32), batch=128, seq_cap=160, x_drop=50)
-    assert lane._lane
-    eng = ProfileAligner(size=(32, 32), batch=8, seq_cap=160, x_drop=50,
-                         use_lane_kernel=False)
-    got = lane.align_batch(pairs)
-    want = eng.align_batch(pairs)
-    for k in range(len(pairs)):
-        assert (got[k].score, got[k].query_idx, got[k].reference_idx) == (
-            want[k].score, want[k].query_idx, want[k].reference_idx), k
+    # x-drop
+    pa = ProfileAligner(size=(32, 32), batch=8, seq_cap=160, x_drop=50)
+    got = pa.align_batch(pairs)
+    orc = BlockOracle(x_drop=True)
+    for k, (q, prof) in enumerate(pairs):
+        orc.align_profile(PaddedBytes.from_bytes(q, 32, prof), prof,
+                          (32, 32), 50)
+        assert got[k] == orc.res(), (k, got[k], orc.res())
 
-    # trace parity (scores + CIGARs)
-    lane = ProfileAligner(size=(32, 32), batch=128, seq_cap=160, trace=True)
-    assert lane._lane
-    eng = ProfileAligner(size=(32, 32), batch=8, seq_cap=160, trace=True,
-                         use_lane_kernel=False)
-    got = lane.align_batch(pairs)
-    want = eng.align_batch(pairs)
-    for k in range(len(pairs)):
-        assert got[k].score == want[k].score, k
-        gc = str(lane.cigar(k, got[k].query_idx, got[k].reference_idx))
-        wc = str(eng.cigar(k, want[k].query_idx, want[k].reference_idx))
+    # trace (scores + CIGARs)
+    pa = ProfileAligner(size=(32, 32), batch=8, seq_cap=160, trace=True)
+    got = pa.align_batch(pairs)
+    orc = BlockOracle(trace=True)
+    for k, (q, prof) in enumerate(pairs):
+        orc.align_profile(PaddedBytes.from_bytes(q, 32, prof), prof,
+                          (32, 32), 0)
+        w = orc.res()
+        assert got[k].score == w.score, k
+        gc = str(pa.cigar(k, got[k].query_idx, got[k].reference_idx))
+        wc = str(orc.cigar(w.query_idx, w.reference_idx))
         assert gc == wc, (k, gc, wc)
 
 
@@ -270,7 +266,7 @@ def test_profile_aligner_staged_and_align_all():
     align_profile_exp min sizes (reference: src/scan_block.rs:907-925)."""
     import numpy as np
 
-    from block_aligner_tpu import (AAProfile, BlockOracle, PaddedBytes,
+    from block_aligner_jax import (AAProfile, BlockOracle, PaddedBytes,
                                    ProfileAligner, align_profile_exp_all)
 
     rng = np.random.default_rng(4)
@@ -298,7 +294,7 @@ def test_profile_aligner_staged_and_align_all():
             q[int(rng.integers(0, len(q)))] = int(rng.choice(list(AA)))
         pairs.append((bytes(q), prof))
 
-    pa = ProfileAligner((16, 16), batch=128, seq_cap=200)
+    pa = ProfileAligner((16, 16), batch=8, seq_cap=200)
     r1 = pa.align_batch(pairs)
     r2 = pa.align_staged(pa.stage(pairs))
     r3 = pa.align_all(pairs)
@@ -311,7 +307,7 @@ def test_profile_aligner_staged_and_align_all():
         pq = PaddedBytes.from_bytes(q, 64, prof)
         orc.align_profile(pq, prof, (64, 64), 0)
         tg.append(orc.res().score)
-    res, ms = align_profile_exp_all(pairs, tg, (16, 64), batch=128,
+    res, ms = align_profile_exp_all(pairs, tg, (16, 64), batch=8,
                                     seq_cap=200)
     for k, (q, prof) in enumerate(pairs):
         pq = PaddedBytes.from_bytes(q, 64, prof)
@@ -320,88 +316,49 @@ def test_profile_aligner_staged_and_align_all():
 
 
 def test_engine_trapdoor_audit():
-    """pick_route enumerates EXACTLY the configurations that still demote
-    to the XLA engine (the audited trapdoor list, VERDICT r3 #10): a
-    routing change that grows the engine set fails here."""
+    """The engine serves every configuration by design, so no BatchAligner
+    warns about falling onto it; on the GPU exactly the fixed-block global
+    and x-drop score modes take the CUDA kernel (pick_route)."""
     import itertools
+    import warnings
 
-    from block_aligner_tpu.api import pick_route
+    from block_aligner_jax.ops.fixed_block import BLOCKS
 
-    documented = {
-        "free_query_end_gaps past the resident budget (requires min "
-        "block > query length, so never legitimately over-budget)",
-        "adaptive bands under 128 past the code budget (big kernel "
-        "floor is 128)",
-    }
-    seen = set()
-    engine_configs = []
-    for min_s, max_s in [(16, 16), (32, 32), (512, 512), (16, 64),
-                         (32, 512), (128, 1024), (512, 8192),
-                         (1024, 1024), (2048, 8192), (512, 16384)]:
-        for seq_cap in (512, 8192, 40000):
-            for trace, xd, fqe in itertools.product(
-                    (False, True), (None, 50), (False, True)):
-                if xd is not None and fqe:
-                    continue  # excluded flag combination
-                path, why = pick_route(
-                    min_s, max_s, seq_cap, trace=trace, x_drop=xd,
-                    free_query_end_gaps=fqe)
-                if path == "engine":
-                    assert why and set(why) <= documented, (
-                        min_s, max_s, seq_cap, trace, xd, fqe, why)
-                    seen.update(why)
-                    engine_configs.append((min_s, max_s, seq_cap, trace,
-                                           xd, fqe))
-                else:
-                    assert not why
-    assert seen == documented, ("stale documented reasons",
-                                documented - seen)
-    # round 5: every config expressible by percent_len (<= 16384) routes
-    # to a kernel path except over-budget free_query_end_gaps (which the
-    # fqe min-block > query-length precondition makes unreachable)
-    for (min_s, max_s, seq_cap, trace, xd, fqe) in engine_configs:
-        assert (fqe or (min_s < max_s < 128)) \
-            and seq_cap + max_s + 17 > 16384, (
-                min_s, max_s, seq_cap, trace, xd, fqe)
-    # spot-check: the round-3 trapdoors that round 4 closed now route
-    assert pick_route(512, 8192, 8000, trace=True)[0] == "big"
-    assert pick_route(128, 1024, 2048, trace=True)[0] == "big"
-    assert pick_route(128, 1024, 2048, trace=True, x_drop=50)[0] == "big"
-    # >8192 bands and over-budget big bands delegate to the segmented
-    # long-read driver; round 5 adds x-drop (VERDICT r4 #4) and <=512
-    # over-budget delegation (VERDICT r4 #5)
-    assert pick_route(512, 16384, 60000)[0] == "long"
-    assert pick_route(512, 16384, 60000, trace=True)[0] == "long"
-    assert pick_route(512, 8192, 40000)[0] == "long"
-    assert pick_route(512, 16384, 60000, x_drop=50)[0] == "long"
-    assert pick_route(32, 512, 40000)[0] == "long"
-    assert pick_route(512, 512, 40000)[0] == "long_lane"
-    assert pick_route(128, 128, 40000, x_drop=50)[0] == "long_lane"
-    assert pick_route(128, 128, 40000, is_byte=True)[0] == "engine"
+    for (min_s, max_s), trace, xd, fqe in itertools.product(
+            [(16, 16), (32, 32), (512, 512), (16, 64), (32, 512),
+             (128, 1024), (1024, 1024)],
+            (False, True), (None, 50), (False, True)):
+        if xd is not None and fqe:
+            continue  # excluded flag combination
+        assert pick_route(min_s, max_s, backend="cpu", trace=trace,
+                          free_query_end_gaps=fqe) == "engine"
+        want = ("cuda" if min_s == max_s and min_s in BLOCKS
+                and not trace and not fqe else "engine")
+        assert pick_route(min_s, max_s, backend="gpu", trace=trace,
+                          free_query_end_gaps=fqe) == want
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for size in [(16, 16), (16, 64), (128, 1024)]:
+            BatchAligner(BLOSUM62, Gaps(-11, -1), size, batch=4, seq_cap=64)
 
 
 def test_profile_aligner_big_blocks_route():
-    """Profiles past 512 route to the big kernel in EVERY mode (round 5:
-    global, then trace/x-drop/flags too — the reference's align_profile
-    rides the same Block<TRACE, X_DROP, ...> const generics,
-    src/scan_block.rs:89,942-995); only >8192 raises, and
-    use_lane_kernel=False opts into the engine explicitly."""
-    import pytest
-
+    """Profiles at every block size and mode run on the engine (the
+    reference's align_profile rides the same Block<TRACE, X_DROP, ...>
+    const generics, src/scan_block.rs:89,942-995), past 8192 included."""
     for kw in ({}, {"trace": True}, {"x_drop": 50}, {"local_start": True},
                {"free_query_start_gaps": True}):
-        pa = ProfileAligner((32, 1024), batch=64, seq_cap=256, **kw)
-        assert pa._big and not pa._lane and not pa._adaptive, kw
-    with pytest.raises(ValueError, match="8192 cap"):
-        ProfileAligner((512, 16384), batch=64, seq_cap=256)
-    pa = ProfileAligner((32, 1024), batch=8, seq_cap=256,
-                        use_lane_kernel=False)
-    assert not pa._lane and not pa._adaptive and not pa._big
+        pa = ProfileAligner((32, 1024), batch=4, seq_cap=256, **kw)
+        assert pa.route == "engine", kw
+    assert ProfileAligner((512, 16384), batch=4,
+                          seq_cap=256).route == "engine"
+    with pytest.raises(ValueError, match="unknown backend"):
+        pick_route(32, 32, backend="metal")
 
 
 def test_profile_aligner_adaptive_staged():
-    """ProfileAligner.stage()/align_staged on the ADAPTIVE path (VERDICT
-    r3 #9): staged results match align_batch."""
+    """ProfileAligner.stage()/align_staged on an adaptive band: staged
+    results match align_batch."""
     AA = b"ACDEFGHIKLMNPQRSTVWY"
     rng = np.random.default_rng(41)
 
@@ -427,8 +384,8 @@ def test_profile_aligner_adaptive_staged():
             q[int(rng.integers(0, len(q)))] = int(rng.choice(list(AA)))
         pairs.append((bytes(q), prof))
 
-    pa = ProfileAligner((16, 64), batch=128, seq_cap=200)
-    assert pa._adaptive
+    pa = ProfileAligner((16, 64), batch=8, seq_cap=200)
+    assert pa.route == "engine"
     r1 = pa.align_batch(pairs)
     r2 = pa.align_staged(pa.stage(pairs))
     assert [x.score for x in r1] == [x.score for x in r2]

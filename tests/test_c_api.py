@@ -18,11 +18,9 @@ def test_c_example_builds_and_runs():
     assert r.returncode == 0, r.stderr
     env = dict(os.environ)
     env["PYTHONPATH"] = f"{ROOT}:{env.get('PYTHONPATH', '')}"
-    # keep the example off the accelerator: batch dispatch falls back to
-    # interpret mode on CPU, so the test never contends with TPU users
+    # keep the C example on the CPU: the embedded runtime must work
+    # anywhere, and the batch call then runs the engine route
     env["JAX_PLATFORMS"] = "cpu"
-    # keep the C example off any accelerator plugin: the embedded runtime
-    # must work anywhere (the batch call falls back to CPU interpret mode)
     r = subprocess.run(["./example"], cwd=CDIR, capture_output=True,
                        text=True, timeout=560, env=env)
     assert r.returncode == 0, r.stderr

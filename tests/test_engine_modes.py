@@ -7,9 +7,9 @@ plus randomized parity including trace CIGARs.
 import numpy as np
 import pytest
 
-from block_aligner_tpu import BLOSUM62, BlockOracle, Gaps, PaddedBytes
-from block_aligner_tpu.core.traceback import EngineTrace
-from block_aligner_tpu.ops.engine import EngineConfig, build_engine, pack_pairs
+from block_aligner_jax import BLOSUM62, BlockOracle, Gaps, PaddedBytes
+from block_aligner_jax.core.traceback import EngineTrace
+from block_aligner_jax.ops.engine import EngineConfig, build_engine, pack_pairs
 
 AA = b"ACDEFGHIKLMNPQRSTVWY"
 

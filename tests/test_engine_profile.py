@@ -7,9 +7,9 @@ plus randomized position-specific score / gap-cost parity.
 import numpy as np
 import pytest
 
-from block_aligner_tpu import AAProfile, BlockOracle, PaddedBytes
-from block_aligner_tpu.core.traceback import EngineTrace
-from block_aligner_tpu.ops.engine import EngineConfig, build_engine, pack_profiles
+from block_aligner_jax import AAProfile, BlockOracle, PaddedBytes
+from block_aligner_jax.core.traceback import EngineTrace
+from block_aligner_jax.ops.engine import EngineConfig, build_engine, pack_profiles
 
 AA = b"ACDEFGHIKLMNPQRSTVWY"
 

@@ -7,9 +7,9 @@ plus randomized parity in the spirit of examples/verify_trace.rs.
 import numpy as np
 import pytest
 
-from block_aligner_tpu import BLOSUM62, BlockOracle, Gaps, NW1, PaddedBytes
-from block_aligner_tpu.core.traceback import EngineTrace
-from block_aligner_tpu.ops.engine import EngineConfig, build_engine, pack_pairs
+from block_aligner_jax import BLOSUM62, BlockOracle, Gaps, NW1, PaddedBytes
+from block_aligner_jax.core.traceback import EngineTrace
+from block_aligner_jax.ops.engine import EngineConfig, build_engine, pack_pairs
 
 AA = b"ACDEFGHIKLMNPQRSTVWY"
 DNA = b"ACGT"
@@ -136,7 +136,7 @@ def test_trace_cigar_consistency():
         q = rand_seq(rng, AA, n)
         pairs.append((q, mutate(rng, q, n // 2, AA)))
     score, qi, rj, et = run_engine_trace(pairs, BLOSUM62, gaps, (16, 64), seq_cap=512)
-    from block_aligner_tpu.core.cigar import Operation
+    from block_aligner_jax.core.cigar import Operation
 
     for k in range(len(pairs)):
         cig = et.cigar(k, int(qi[k]), int(rj[k]))

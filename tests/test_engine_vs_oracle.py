@@ -5,8 +5,8 @@ grow/shrink heuristics and x-drop semantics."""
 import numpy as np
 import pytest
 
-from block_aligner_tpu import BLOSUM62, BlockOracle, BYTES1, Gaps, NW1, PaddedBytes
-from block_aligner_tpu.ops.engine import EngineConfig, build_engine, pack_pairs
+from block_aligner_jax import BLOSUM62, BlockOracle, BYTES1, Gaps, NW1, PaddedBytes
+from block_aligner_jax.ops.engine import EngineConfig, build_engine, pack_pairs
 
 AA = b"ACDEFGHIKLMNPQRSTVWY"
 DNA = b"ACGT"
@@ -46,7 +46,7 @@ def engine_align(pairs, matrix, gaps, min_size, max_size, x_drop=0, xd=False):
     maxlen = max(max(len(q), len(r)) for q, r in pairs)
     seq_cap = 1 + maxlen + max_size + 16
     seq_cap = -(-seq_cap // 128) * 128
-    from block_aligner_tpu.core.scores import ByteMatrix
+    from block_aligner_jax.core.scores import ByteMatrix
 
     is_byte = isinstance(matrix, ByteMatrix)
     cfg = EngineConfig(
@@ -145,7 +145,7 @@ def test_engine_offset_saturation_long():
     # the reference's 2048-long saturation case (src/scan_block.rs:2030-2049):
     # the final score (8192) far exceeds the i16 per-block range, so this
     # exercises the 32-bit offset rebasing chain end to end
-    from block_aligner_tpu.ops.engine import EngineConfig, build_engine, pack_pairs
+    from block_aligner_jax.ops.engine import EngineConfig, build_engine, pack_pairs
 
     long_str = b"A" * 2048
     gaps = Gaps(open=-11, extend=-1)

@@ -1,5 +1,5 @@
 """Real-format fixture loading: miniature files in the exact reference
-dataset formats (data/README.md), parsed by the examples_tpu loaders the
+dataset formats (data/README.md), parsed by the examples loaders the
 same way the reference example programs parse the real downloads, then
 aligned end-to-end with oracle cross-checks."""
 
@@ -10,16 +10,16 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from block_aligner_tpu import (
+from block_aligner_jax import (
     BLOSUM62, BlockOracle, Gaps, NucMatrix, PaddedBytes,
 )
-from block_aligner_tpu.api import BatchAligner, ProfileAligner
+from block_aligner_jax.api import BatchAligner, ProfileAligner
 
 
 def test_uc_m8_fixture():
     """mmseqs convertalis m8 (14 cols, qseq/tseq last; reference parser
     examples/uc_accuracy.rs:21-25): load + global BLOSUM62 -11/-1."""
-    from examples_tpu.common import load_uc_pairs
+    from examples.common import load_uc_pairs
 
     pairs = load_uc_pairs(name="uc30.mini")
     assert len(pairs) == 20
@@ -40,7 +40,7 @@ def test_uc_m8_fixture():
 def test_nanopore_pairs_fixture():
     """BiWFA-style alternating-line pair file (r line first, q second;
     reference parser examples/nanopore_accuracy.rs:31-33)."""
-    from examples_tpu.common import load_nanopore_pairs
+    from examples.common import load_nanopore_pairs
 
     pairs = load_nanopore_pairs(name="seq_pairs.mini", n_pairs=10)
     assert len(pairs) == 10
@@ -62,12 +62,12 @@ def test_scop_pssm_fixture():
     """scop pairs.pssm records ('#seq' / '#cns' / header / 'pos aa s*20'
     rows in ACDEFGHIKLMNPQRSTVWY order, gap open -10 close 0 per position;
     reference parser examples/pssm_accuracy.rs:38-69)."""
-    from examples_tpu.common import load_scop_profiles
+    from examples.common import load_scop_profiles
 
     recs = load_scop_profiles(name="pairs.mini.pssm")
     assert len(recs) == 6
-    pa = ProfileAligner((16, 64), batch=128, seq_cap=200)
-    assert pa._adaptive
+    pa = ProfileAligner((16, 64), batch=8, seq_cap=200)
+    assert pa.route == "engine"
     got = pa.align_batch(recs)
     orc = BlockOracle()
     for k, (q, prof) in enumerate(recs):

@@ -1,18 +1,17 @@
 """Randomized differential fuzzing across configurations and backends.
 
 One bounded sweep per run: random (matrix, gaps, mode, block range,
-sequence shape) configurations, each checked engine-vs-oracle (and lane
-kernel where eligible).  The reference relies on fixed-seed randomized
+sequence shape) configurations, each checked engine-vs-oracle.  The reference relies on fixed-seed randomized
 examples for the same purpose (reference: examples/accuracy.rs).
 """
 
 import numpy as np
 import pytest
 
-from block_aligner_tpu import (BLOSUM45, BLOSUM62, BLOSUM90, BlockOracle,
+from block_aligner_jax import (BLOSUM45, BLOSUM62, BLOSUM90, BlockOracle,
                                Gaps, NucMatrix, PaddedBytes, PAM120)
-from block_aligner_tpu.core.traceback import EngineTrace
-from block_aligner_tpu.ops.engine import EngineConfig, build_engine, pack_pairs
+from block_aligner_jax.core.traceback import EngineTrace
+from block_aligner_jax.ops.engine import EngineConfig, build_engine, pack_pairs
 
 AA = b"ACDEFGHIKLMNPQRSTVWY"
 DNA = b"ACGT"
@@ -96,10 +95,10 @@ def test_fuzz_engine_vs_oracle(round_seed):
 
 @pytest.mark.parametrize("round_seed", [101, 202])
 def test_fuzz_adaptive_kernel_vs_oracle(round_seed):
-    """Randomized adaptive-kernel sweeps: random matrices/gaps/ranges and
+    """Randomized adaptive sweeps: random matrices/gaps/ranges and
     shape corners (empty, single-char, strongly asymmetric, unrelated)
     checked against the oracle's grow/shrink machine."""
-    from block_aligner_tpu.api import BatchAligner
+    from block_aligner_jax.api import BatchAligner
 
     rng = np.random.default_rng(round_seed)
     for it in range(3):
@@ -114,8 +113,8 @@ def test_fuzz_adaptive_kernel_vs_oracle(round_seed):
         for _ in range(12):
             pairs.append(rand_pair(rng, alpha, 1, 120,
                                    bool(rng.integers(0, 2))))
-        al = BatchAligner(matrix, gaps, (mins, maxs), batch=128, seq_cap=200)
-        assert al._adaptive
+        al = BatchAligner(matrix, gaps, (mins, maxs), batch=16, seq_cap=200)
+        assert al.route == "engine"
         got = al.align_batch(pairs)
         orc = BlockOracle()
         for k, (q, r) in enumerate(pairs):
@@ -128,10 +127,10 @@ def test_fuzz_adaptive_kernel_vs_oracle(round_seed):
 
 @pytest.mark.parametrize("round_seed", [107, 211])
 def test_fuzz_big_kernel_vs_oracle(round_seed):
-    """Randomized big-kernel sweeps across max sizes crossing 512 and mode
+    """Randomized large-band sweeps across max sizes crossing 512 and mode
     flags (global / x-drop / local-start / free-query-start-gaps), shape
     corners included, checked against the oracle's grow/shrink machine."""
-    from block_aligner_tpu.api import BatchAligner
+    from block_aligner_jax.api import BatchAligner
 
     rng = np.random.default_rng(round_seed)
     for it in range(2):
@@ -150,11 +149,11 @@ def test_fuzz_big_kernel_vs_oracle(round_seed):
         for _ in range(8):
             pairs.append(rand_pair(rng, alpha, 1, 400,
                                    bool(rng.integers(0, 2))))
-        al = BatchAligner(matrix, gaps, (mins, maxs), batch=128,
+        al = BatchAligner(matrix, gaps, (mins, maxs), batch=16,
                           seq_cap=1024, x_drop=x_drop,
                           local_start=local_start,
                           free_query_start_gaps=fqs)
-        assert al._big
+        assert al.route == "engine"
         got = al.align_batch(pairs)
         orc = BlockOracle(x_drop=x_drop is not None, local_start=local_start,
                           free_query_start_gaps=fqs)

@@ -1,19 +1,19 @@
-"""The reference's hand-checked golden cases through EVERY eligible
-device-kernel path (lane fixed-block, adaptive grow/shrink, big
-row-segmented), not just the scalar oracle.
+"""The reference's hand-checked golden cases through the batched aligner
+at fixed-block, adaptive (grow/shrink) and large-band ranges, not just the
+scalar oracle.
 
 ``tests/test_oracle_golden.py`` pins the oracle to the reference's unit
-tests (reference: src/scan_block.rs:1902-2231); this file pins each
-kernel path to the same cases: at the reference's exact block range the
-golden value is asserted directly, and at each kernel-routing range the
-kernel is asserted against the oracle run at that range (the oracle
+tests (reference: src/scan_block.rs:1902-2231); this file pins the
+batched aligner to the same cases: at the reference's exact block range
+the golden value is asserted directly, and at each other range the
+aligner is asserted against the oracle run at that range (the oracle
 chain carries the golden trust to configurations the reference test
 didn't pin a literal value for)."""
 
 import numpy as np
 import pytest
 
-from block_aligner_tpu import (
+from block_aligner_jax import (
     BLOSUM62,
     BYTES1,
     NW1,
@@ -69,25 +69,25 @@ def oracle_scores(cases, matrix, gaps, size):
 
 
 def run_paths(cases, matrix, gaps, ref_block=16):
-    """Each golden case through the lane (reference's exact fixed range:
-    golden value), adaptive, and big kernel paths."""
+    """Each golden case at the reference's exact fixed range (golden
+    value), an adaptive range and a large band."""
     pairs = [(q, r) for q, r, _ in cases]
     golden = [s for _, _, s in cases]
 
-    lane = BatchAligner(matrix, gaps, (ref_block, ref_block), batch=128,
+    lane = BatchAligner(matrix, gaps, (ref_block, ref_block), batch=16,
                         seq_cap=256)
-    assert lane._lane
+    assert lane.route == "engine"
     got = lane.align_batch(pairs)
     assert [g.score for g in got] == golden
 
-    ada = BatchAligner(matrix, gaps, (16, 32), batch=128, seq_cap=256)
-    assert ada._adaptive
+    ada = BatchAligner(matrix, gaps, (16, 32), batch=16, seq_cap=256)
+    assert ada.route == "engine"
     got = ada.align_batch(pairs)
     assert [g.score for g in got] == oracle_scores(
         cases, matrix, gaps, (16, 32))
 
-    big = BatchAligner(matrix, gaps, (32, 512), batch=128, seq_cap=1024)
-    assert big._big
+    big = BatchAligner(matrix, gaps, (32, 512), batch=16, seq_cap=1024)
+    assert big.route == "engine"
     got = big.align_batch(pairs)
     assert [g.score for g in got] == oracle_scores(
         cases, matrix, gaps, (32, 512))
@@ -107,7 +107,7 @@ def test_golden_bytes_all_paths():
 
 def test_golden_x_drop_paths():
     """reference test_x_drop (src/scan_block.rs:1994-2050): scores AND end
-    positions through the lane + adaptive kernels."""
+    positions at fixed and adaptive ranges."""
     cases = [
         (b"", b"", (0, 0, 0)),
         (b"", b"AAAA", (0, 0, 0)),
@@ -117,18 +117,18 @@ def test_golden_x_drop_paths():
     ]
     pairs = [(q, r) for q, r, _ in cases]
 
-    lane = BatchAligner(BLOSUM62, GAPS_AA, (16, 16), batch=128,
+    lane = BatchAligner(BLOSUM62, GAPS_AA, (16, 16), batch=16,
                         seq_cap=256, x_drop=1)
-    assert lane._lane
+    assert lane.route == "engine"
     got = lane.align_batch(pairs)
     for k, (_, _, want) in enumerate(cases):
         assert (got[k].score, got[k].query_idx, got[k].reference_idx) \
             == want, (k, got[k], want)
 
     orc = BlockOracle(x_drop=True)
-    ada = BatchAligner(BLOSUM62, GAPS_AA, (16, 32), batch=128,
+    ada = BatchAligner(BLOSUM62, GAPS_AA, (16, 32), batch=16,
                        seq_cap=256, x_drop=1)
-    assert ada._adaptive
+    assert ada.route == "engine"
     got = ada.align_batch(pairs)
     for k, (q, r) in enumerate(pairs):
         pq = PaddedBytes.from_bytes(q, 32, BLOSUM62)
@@ -141,8 +141,8 @@ def test_golden_x_drop_paths():
 
 def test_golden_trace_paths():
     """reference test_trace (src/scan_block.rs:2052-2103): exact golden
-    CIGARs on the lane path; oracle-exact CIGARs on the adaptive and big
-    trace paths at their routing ranges."""
+    CIGARs at the fixed range; oracle-exact CIGARs at an adaptive range
+    and a large band."""
     # (query, reference, matrix, gaps, block, result, cigar, eq)
     cases = [
         (b"AAAAAA", b"AAARRA", BLOSUM62, GAPS_AA, 16,
@@ -156,9 +156,9 @@ def test_golden_trace_paths():
          Gaps(open=-5, extend=-2), 32, (14, 16, 13), "9=2I4=1I", True),
     ]
     for q, r, matrix, gaps, blk, want, cig, eq in cases:
-        lane = BatchAligner(matrix, gaps, (blk, blk), batch=128,
+        lane = BatchAligner(matrix, gaps, (blk, blk), batch=16,
                             seq_cap=256, trace=True)
-        assert lane._lane
+        assert lane.route == "engine"
         got = lane.align_batch([(q, r)])[0]
         assert (got.score, len(q), len(r)) == want, (got, want)
         if eq:
@@ -168,11 +168,7 @@ def test_golden_trace_paths():
         assert gc == cig, (gc, cig)
 
     orc = BlockOracle(trace=True)
-    # trace at max == 512 stays on the adaptive kernel (api.pick_route);
-    # the big trace path needs max > 512.  Group same-(matrix, gaps)
-    # cases into one batch: each aligner build traces the whole kernel
-    # body (~1 min for the big kernel in interpret mode), so builds
-    # dominate this test's runtime
+    # group same-(matrix, gaps) cases into one batch per aligner
     groups = {}
     for q, r, matrix, gaps, _, _, _, eq in cases:
         groups.setdefault((id(matrix), id(gaps)), (matrix, gaps, []))[2] \
@@ -180,9 +176,9 @@ def test_golden_trace_paths():
     for size, seq_cap, which in (((16, 32), 256, "adaptive"),
                                  ((64, 1024), 512, "big")):
         for matrix, gaps, pairs in groups.values():
-            al = BatchAligner(matrix, gaps, size, batch=128,
+            al = BatchAligner(matrix, gaps, size, batch=16,
                               seq_cap=seq_cap, trace=True)
-            assert getattr(al, "_" + which)
+            assert al.route == "engine", which
             got = al.align_batch(pairs)
             for k, (q, r) in enumerate(pairs):
                 pq = PaddedBytes.from_bytes(q, size[1], matrix)
@@ -200,7 +196,7 @@ def test_golden_doc_example_all_paths():
     CIGAR 2=6I16=3D, block range 32..=32."""
     q = b"TTTTTTTTAAAAAAATTTTTTTTT"
     r = b"TTAAAAAAATTTTTTTTTTTT"
-    lane = BatchAligner(NW1, GAPS_NUC, (32, 32), batch=128, seq_cap=256,
+    lane = BatchAligner(NW1, GAPS_NUC, (32, 32), batch=16, seq_cap=256,
                         trace=True)
     got = lane.align_batch([(q, r)])[0]
     assert got.score == 7
@@ -209,8 +205,7 @@ def test_golden_doc_example_all_paths():
 
 def test_golden_profile_paths():
     """reference test_profile (src/scan_block.rs:2122-2168): PSSM golden
-    scores + gap-close CIGAR through the lane and adaptive profile
-    paths."""
+    scores + gap-close CIGAR at fixed and adaptive profile ranges."""
     def prof(s, block, gap_extend_R=0, close17=None):
         # AAProfile.from_bytes(s, block, match, mismatch, gap open C,
         # gap extend rows..) analogue: mirror test_oracle_golden's builder
@@ -230,8 +225,8 @@ def test_golden_profile_paths():
          prof(b"TTAAAAAAATTTTTTTTTTTT", 16, gap_extend_R=-1),
          6, "2M6I16M3D"),
     ]
-    lane = ProfileAligner((16, 16), batch=128, seq_cap=256, trace=True)
-    assert lane._lane
+    lane = ProfileAligner((16, 16), batch=16, seq_cap=256, trace=True)
+    assert lane.route == "engine"
     for q, p, score, cig in cases:
         got = lane.align_batch([(q, p)])[0]
         assert got.score == score, (q, got, score)
@@ -250,8 +245,8 @@ def test_golden_profile_paths():
 
     # adaptive profile path vs the oracle at (16, 32)
     orc = BlockOracle(trace=True)
-    ada = ProfileAligner((16, 32), batch=128, seq_cap=256, trace=True)
-    assert ada._adaptive
+    ada = ProfileAligner((16, 32), batch=16, seq_cap=256, trace=True)
+    assert ada.route == "engine"
     for q, p, _, cig in cases + [(q, pc, 6, "gapclose")]:
         got = ada.align_batch([(q, p)])[0]
         pq = PaddedBytes.from_bytes(q, 32, p)
@@ -266,8 +261,8 @@ def test_golden_profile_paths():
 def test_golden_local_and_free_query_gaps_paths():
     """reference test_local_and_free_query_gaps
     (src/scan_block.rs:2170-2230): LOCAL_START / FREE_QUERY_START_GAPS /
-    FREE_QUERY_END_GAPS golden results + CIGARs through the lane kernel,
-    and the local/free-start flags through the adaptive + big paths."""
+    FREE_QUERY_END_GAPS golden results + CIGARs at the fixed range, and
+    the local/free-start flags at an adaptive range and a large band."""
     cases = [
         # (flags, q, r, x_drop, result, cigar)
         (dict(local_start=True), b"CCCCCCCCCCAAAAAA", b"TTTTAAAAAA",
@@ -284,29 +279,29 @@ def test_golden_local_and_free_query_gaps_paths():
          None, (4, 6, 6), "3=1X2="),
     ]
     for flags, q, r, xd, want, cig in cases:
-        lane = BatchAligner(NW1, GAPS_NUC, (32, 32), batch=128,
+        lane = BatchAligner(NW1, GAPS_NUC, (32, 32), batch=16,
                             seq_cap=256, trace=True, x_drop=xd, **flags)
-        assert lane._lane
+        assert lane.route == "engine"
         got = lane.align_batch([(q, r)])[0]
         assert (got.score, got.query_idx, got.reference_idx) == want, (
             flags, got, want)
         gc = str(lane.cigar_eq(0, q, r, want[1], want[2]))
         assert gc == cig, (flags, gc, cig)
 
-    # local-start / free-start flags through the adaptive + big kernels
-    # (one aligner per flag set per path; same-flag cases share a batch)
+    # local-start / free-start flags at adaptive and large-band ranges
+    # (one aligner per flag set per range; same-flag cases share a batch)
     groups = {}
     for flags, q, r, xd, _, _ in cases:
         if xd is not None or flags.get("free_query_end_gaps"):
-            continue  # wide-mode trace >512 is out of kernel scope
+            continue  # covered at the fixed range above
         groups.setdefault(tuple(sorted(flags)), (flags, []))[1] \
             .append((q, r))
     for size, seq_cap, which in (((16, 32), 256, "adaptive"),
                                  ((64, 1024), 512, "big")):
         for flags, pairs in groups.values():
-            al = BatchAligner(NW1, GAPS_NUC, size, batch=128,
+            al = BatchAligner(NW1, GAPS_NUC, size, batch=16,
                               seq_cap=seq_cap, trace=True, **flags)
-            assert getattr(al, "_" + which)
+            assert al.route == "engine", which
             got = al.align_batch(pairs)
             orc = BlockOracle(trace=True, **flags)
             for k, (q, r) in enumerate(pairs):

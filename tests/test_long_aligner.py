@@ -1,8 +1,9 @@
-"""Segmented long-sequence aligner vs the oracle (interpret mode, CPU)."""
+"""Long-sequence aligners vs the oracle: whole sequences on the device,
+capacity sized per batch."""
 
 import numpy as np
 
-from block_aligner_tpu import (BLOSUM62, BlockOracle, Gaps, LongBatchAligner,
+from block_aligner_jax import (BLOSUM62, BlockOracle, Gaps, LongBatchAligner,
                                NucMatrix, PaddedBytes)
 
 AA = b"ACDEFGHIKLMNPQRSTVWY"
@@ -31,7 +32,6 @@ def test_long_segmented_global():
     rng = np.random.default_rng(71)
     gaps = Gaps(open=-6, extend=-2)
     matrix = NucMatrix.new_simple(2, -4)
-    # sequences longer than the window force multiple segments
     pairs = []
     for _ in range(6):
         n = int(rng.integers(600, 1200))
@@ -40,8 +40,7 @@ def test_long_segmented_global():
     pairs.append((b"ACGT" * 10, b"ACGT" * 10))
     pairs.append((rand_seq(rng, DNA, 900), rand_seq(rng, DNA, 700)))
 
-    al = LongBatchAligner(matrix, gaps, block=32, window=256, batch=256)
-    assert al.cfg.seg_steps * 8 < 1200  # really multi-segment
+    al = LongBatchAligner(matrix, gaps, block=32, batch=8)
     res = al.align_batch(pairs)
 
     a = BlockOracle()
@@ -61,7 +60,7 @@ def test_long_segmented_x_drop():
         q = rand_seq(rng, AA, n)
         pairs.append((q, mutate(rng, q, n // 10, AA)))
 
-    al = LongBatchAligner(BLOSUM62, gaps, block=32, window=256, batch=256,
+    al = LongBatchAligner(BLOSUM62, gaps, block=32, batch=8,
                           x_drop=100)
     res = al.align_batch(pairs)
     a = BlockOracle(x_drop=True)
@@ -75,8 +74,7 @@ def test_long_segmented_x_drop():
 
 
 def test_long_segmented_trace_cigars():
-    # segmented trace: per-launch packed-bit streams stitched into one
-    # global trace; CIGARs must match the scalar oracle exactly
+    # long trace: CIGARs must match the scalar oracle exactly
     rng = np.random.default_rng(75)
     gaps = Gaps(open=-6, extend=-2)
     matrix = NucMatrix.new_simple(2, -4)
@@ -87,9 +85,8 @@ def test_long_segmented_trace_cigars():
         pairs.append((q, mutate(rng, q, n // 8, DNA)))
     pairs.append((b"ACGT" * 10, b"ACGT" * 10))
 
-    al = LongBatchAligner(matrix, gaps, block=32, window=256, batch=256,
+    al = LongBatchAligner(matrix, gaps, block=32, batch=8,
                           trace=True)
-    assert al.cfg.seg_steps * 8 < 1100  # really multi-segment
     res = al.align_batch(pairs)
 
     for k, (q, r) in enumerate(pairs):
@@ -112,7 +109,7 @@ def test_long_segmented_trace_x_drop():
         q = rand_seq(rng, AA, n)
         pairs.append((q, mutate(rng, q, n // 10, AA)))
 
-    al = LongBatchAligner(BLOSUM62, gaps, block=32, window=256, batch=256,
+    al = LongBatchAligner(BLOSUM62, gaps, block=32, batch=8,
                           x_drop=100, trace=True)
     res = al.align_batch(pairs)
     for k, (q, r) in enumerate(pairs):
@@ -129,7 +126,7 @@ def test_long_segmented_trace_x_drop():
 
 
 def _rand_profile(rng, n, S, ge=-1):
-    from block_aligner_tpu import AAProfile
+    from block_aligner_jax import AAProfile
 
     prof = AAProfile(n, 2048, ge)
     base = rng.integers(-4, 3, size=(n, 26))
@@ -145,8 +142,8 @@ def _rand_profile(rng, n, S, ge=-1):
 
 
 def test_long_segmented_profile():
-    """Sequence-to-PSSM through the segmented kernel: profiles/queries far
-    beyond the VMEM window, bit-exact vs the scalar oracle."""
+    """Sequence-to-PSSM for profiles/queries of several hundred
+    positions, bit-exact vs the scalar oracle."""
     rng = np.random.default_rng(9)
     gaps = Gaps(open=-11, extend=-1)
     S = 16
@@ -158,7 +155,7 @@ def test_long_segmented_profile():
         for _ in range(n // 5):
             q[int(rng.integers(0, len(q)))] = int(rng.choice(list(AA)))
         pairs.append((bytes(q), prof))
-    al = LongBatchAligner(BLOSUM62, gaps, block=S, window=256, batch=256,
+    al = LongBatchAligner(BLOSUM62, gaps, block=S, batch=8,
                           profile=True)
     got = al.align_batch(pairs)
     orc = BlockOracle()
@@ -180,7 +177,7 @@ def test_long_segmented_profile_trace():
         for _ in range(n // 6):
             q[int(rng.integers(0, len(q)))] = int(rng.choice(list(AA)))
         pairs.append((bytes(q), prof))
-    al = LongBatchAligner(BLOSUM62, gaps, block=S, window=256, batch=256,
+    al = LongBatchAligner(BLOSUM62, gaps, block=S, batch=8,
                           profile=True, trace=True)
     got = al.align_batch(pairs)
     for k, (q, prof) in enumerate(pairs):
@@ -203,7 +200,7 @@ def test_long_segmented_local_start():
         n = int(rng.integers(300, 600))
         q = rand_seq(rng, AA, n)
         pairs.append((q, mutate(rng, q, n // 6, AA)))
-    al = LongBatchAligner(BLOSUM62, gaps, block=S, window=256, batch=256,
+    al = LongBatchAligner(BLOSUM62, gaps, block=S, batch=8,
                           local_start=True, x_drop=100)
     got = al.align_batch(pairs)
     orc = BlockOracle(local_start=True, x_drop=True)
@@ -217,9 +214,8 @@ def test_long_segmented_local_start():
 
 
 def test_long_segmented_local_start_trace():
-    """Segmented local-start trace: 2 byte-field words per step (the
-    zero-mask bit rides bit 4); _assemble_trace must stitch both words per
-    step and pass the mode flags to the walker."""
+    """Long local-start trace: the zero-mask bit must reach the walker
+    with the mode flags; CIGARs oracle-exact."""
     rng = np.random.default_rng(47)
     gaps = Gaps(open=-11, extend=-1)
     S = 16
@@ -228,9 +224,8 @@ def test_long_segmented_local_start_trace():
         n = int(rng.integers(300, 600))
         q = rand_seq(rng, AA, n)
         pairs.append((q, mutate(rng, q, n // 6, AA)))
-    al = LongBatchAligner(BLOSUM62, gaps, block=S, window=256, batch=256,
+    al = LongBatchAligner(BLOSUM62, gaps, block=S, batch=8,
                           local_start=True, x_drop=100, trace=True)
-    assert al.cfg.trace_words == 2 and al.cfg.seg_steps * 8 < 600
     got = al.align_batch(pairs)
     for k, (q, r) in enumerate(pairs):
         orc = BlockOracle(local_start=True, x_drop=True, trace=True)
@@ -246,8 +241,8 @@ def test_long_segmented_local_start_trace():
 
 
 def test_long_segmented_free_query_start_gaps_trace():
-    """Segmented trace with free leading query gaps: the walker must keep
-    its i==0 termination across stitched launches."""
+    """Long trace with free leading query gaps: the walker must keep its
+    i==0 termination."""
     rng = np.random.default_rng(53)
     gaps = Gaps(open=-11, extend=-1)
     S = 16
@@ -255,7 +250,7 @@ def test_long_segmented_free_query_start_gaps_trace():
     for _ in range(5):  # unrelated pairs: leading query gaps matter
         pairs.append((rand_seq(rng, AA, int(rng.integers(200, 400))),
                       rand_seq(rng, AA, int(rng.integers(300, 600)))))
-    al = LongBatchAligner(BLOSUM62, gaps, block=S, window=256, batch=256,
+    al = LongBatchAligner(BLOSUM62, gaps, block=S, batch=8,
                           free_query_start_gaps=True, trace=True)
     got = al.align_batch(pairs)
     for k, (q, r) in enumerate(pairs):
@@ -284,7 +279,7 @@ def test_long_segmented_free_query_end_gaps():
         for _ in range(3):
             q[int(rng.integers(0, len(q)))] = int(rng.choice(list(AA)))
         pairs.append((bytes(q), r))
-    al = LongBatchAligner(BLOSUM62, gaps, block=S, window=256, batch=256,
+    al = LongBatchAligner(BLOSUM62, gaps, block=S, batch=8,
                           free_query_start_gaps=True,
                           free_query_end_gaps=True)
     got = al.align_batch(pairs)
@@ -299,9 +294,9 @@ def test_long_segmented_free_query_end_gaps():
 
 
 def test_long_segmented_block_512():
-    """Block 512 (the reference's 1% band for 50 kbp reads) through the
-    segmented kernel with trace: scores and CIGARs oracle-exact."""
-    from block_aligner_tpu import NucMatrix
+    """Block 512 (the reference's 1% band for 50 kbp reads) with trace:
+    scores and CIGARs oracle-exact."""
+    from block_aligner_jax import NucMatrix
 
     rng = np.random.default_rng(4)
     DNA = b"ACGT"
@@ -315,7 +310,7 @@ def test_long_segmented_block_512():
         for _ in range(n // 10):
             q[int(rng.integers(0, len(q)))] = int(rng.choice(list(DNA)))
         pairs.append((bytes(q), r))
-    al = LongBatchAligner(matrix, gaps, block=512, window=2048, batch=256,
+    al = LongBatchAligner(matrix, gaps, block=512, batch=8,
                           trace=True)
     got = al.align_batch(pairs)
     for k, (q, r) in enumerate(pairs):
@@ -330,11 +325,10 @@ def test_long_segmented_block_512():
 
 
 def test_long_adaptive_x_drop():
-    """Segmented big-kernel x-drop (round 5, VERDICT r4 #4): the 54
-    wide-tracker rows persist across launches, so scores, best positions
-    and the X_DROP_ITER termination match the oracle over multi-launch
-    runs (incl. grow/restore across a launch boundary)."""
-    from block_aligner_tpu import LongAdaptiveAligner
+    """Adaptive x-drop over 1.5-2.5 kbp reads: scores, best positions and
+    the X_DROP_ITER termination match the oracle, including grow/restore
+    around an inserted block and an early x-drop stop."""
+    from block_aligner_jax import LongAdaptiveAligner
 
     rng = np.random.default_rng(73)
     gaps = Gaps(open=-11, extend=-1)
@@ -343,19 +337,18 @@ def test_long_adaptive_x_drop():
         n = int(rng.integers(1500, 2500))
         q = rand_seq(rng, AA, n)
         pairs.append((q, mutate(rng, q, n // 10, AA)))
-    # inserted block: grow + checkpoint restore, likely across a launch
+    # inserted block: grow + checkpoint restore
     n = 1800
     q = rand_seq(rng, AA, n)
     r = q[: n // 2] + rand_seq(rng, AA, 300) + q[n // 2 :]
     pairs.append((q, r))
-    # divergent tail: x-drop terminates mid-sequence (DONE persistence)
+    # divergent tail: x-drop terminates mid-sequence
     q = rand_seq(rng, AA, 2000)
     r = q[:700] + rand_seq(rng, AA, 1300)
     pairs.append((q, r))
 
-    al = LongAdaptiveAligner(BLOSUM62, gaps, (128, 512), window=1152,
-                             batch=128, seq_cap=4096, x_drop=100)
-    assert al.cfg.seg_steps * 8 < 1500  # really multi-launch
+    al = LongAdaptiveAligner(BLOSUM62, gaps, (128, 512), batch=8,
+                             seq_cap=4096, x_drop=100)
     res = al.align_batch(pairs)
     a = BlockOracle(x_drop=True)
     for k, (q, r) in enumerate(pairs):
@@ -368,12 +361,10 @@ def test_long_adaptive_x_drop():
 
 
 def test_batch_aligner_over_budget_delegation():
-    """BatchAligner auto-delegates over-budget bands (VERDICT r4 #5):
-    adaptive/x-drop bands to LongAdaptiveAligner, fixed <=512 blocks to
-    LongBatchAligner -- no config expressible by percent_len demotes to
-    the engine anymore (routing pinned by test_engine_trapdoor_audit)."""
-    from block_aligner_tpu import LongAdaptiveAligner
-    from block_aligner_tpu.api import BatchAligner
+    """A BatchAligner declared for 20 kbp sequences keeps them whole in
+    device memory on the engine: adaptive x-drop bands and fixed blocks
+    stay oracle-exact with no segmenting or delegation."""
+    from block_aligner_jax.api import BatchAligner
 
     rng = np.random.default_rng(74)
     gaps = Gaps(open=-11, extend=-1)
@@ -383,22 +374,20 @@ def test_batch_aligner_over_budget_delegation():
         q = rand_seq(rng, AA, n)
         pairs.append((q, mutate(rng, q, n // 10, AA)))
 
-    # adaptive x-drop band, declared 20 kbp capacity -> "long"
-    ba = BatchAligner(BLOSUM62, gaps, size=(128, 512), batch=128,
+    ba = BatchAligner(BLOSUM62, gaps, size=(128, 512), batch=4,
                       seq_cap=20000, x_drop=100)
-    assert ba._long and isinstance(ba._inner, LongAdaptiveAligner)
+    assert ba.route == "engine" and ba.seq_capacity >= 20000
     res = ba.align_batch(pairs)
     a = BlockOracle(x_drop=True)
     for k, (q, r) in enumerate(pairs):
         pq = PaddedBytes.from_bytes(q, 512, BLOSUM62)
         pr = PaddedBytes.from_bytes(r, 512, BLOSUM62)
         a.align(pq, pr, BLOSUM62, gaps, (128, 512), 100)
-        assert res[k].score == a.res().score, (k, res[k], a.res())
+        assert res[k] == a.res(), (k, res[k], a.res())
 
-    # fixed block, declared 20 kbp capacity -> "long_lane"
-    ba2 = BatchAligner(BLOSUM62, gaps, size=(128, 128), batch=128,
+    ba2 = BatchAligner(BLOSUM62, gaps, size=(128, 128), batch=4,
                        seq_cap=20000)
-    assert ba2._long and isinstance(ba2._inner, LongBatchAligner)
+    assert ba2.route == "engine"
     res2 = ba2.align_batch(pairs)
     a2 = BlockOracle()
     for k, (q, r) in enumerate(pairs):

@@ -1,22 +1,19 @@
-"""Lane kernel sharded over a virtual 8-device mesh (CPU, interpret mode)."""
+"""Aligners sharded over a virtual 8-device mesh (CPU)."""
 
 import numpy as np
 
-from block_aligner_tpu import BLOSUM62, BlockOracle, Gaps, PaddedBytes
-from block_aligner_tpu.ops.lane_kernel import LaneKernelConfig, pack_lane
-from block_aligner_tpu.parallel.mesh import data_parallel_lane, make_mesh
+from block_aligner_jax import BLOSUM62, BlockOracle, Gaps, PaddedBytes
+from block_aligner_jax.api import BatchAligner
+from block_aligner_jax.parallel.mesh import make_mesh
 
 AA = b"ACDEFGHIKLMNPQRSTVWY"
 
 
 def test_lane_kernel_on_mesh():
+    """Fixed-block global batch sharded over the 8-device mesh."""
     mesh = make_mesh(8)
     rng = np.random.default_rng(55)
     S = 16
-    cfg = LaneKernelConfig(batch=8 * 256, block=S, seq_cap=256, alpha=32,
-                           banks=2, interpret=True)
-    run = data_parallel_lane(cfg, mesh)
-
     pairs = []
     for _ in range(24):
         n = int(rng.integers(10, 80))
@@ -24,28 +21,25 @@ def test_lane_kernel_on_mesh():
         r = bytes(rng.choice(list(AA), size=int(rng.integers(10, 80))).tolist())
         pairs.append((q, r))
     gaps = Gaps(open=-11, extend=-1)
-    args = pack_lane(pairs, BLOSUM62, cfg, gaps)
-    out = np.asarray(run(*args))[:, :, 0, :].reshape(cfg.batch)
+    al = BatchAligner(BLOSUM62, gaps, (S, S), batch=8 * 4, seq_cap=96,
+                      mesh=mesh)
+    assert al.route == "engine"
+    got = al.align_batch(pairs)
 
     a = BlockOracle()
     for k, (q, r) in enumerate(pairs):
         pq = PaddedBytes.from_bytes(q, S, BLOSUM62)
         pr = PaddedBytes.from_bytes(r, S, BLOSUM62)
         a.align(pq, pr, BLOSUM62, gaps, (S, S), 0)
-        assert int(out[k]) == a.res().score, k
+        assert got[k].score == a.res().score, k
 
 
 def test_lane_kernel_trace_on_mesh():
-    """Trace mode sharded over the mesh: packed word/descriptor streams
-    stay program-sharded; CIGARs must match the oracle bit-for-bit."""
-    from block_aligner_tpu.core.traceback import lane_trace
-
+    """Trace mode sharded over the mesh: the trace streams stay
+    batch-sharded; CIGARs must match the oracle bit-for-bit."""
     mesh = make_mesh(8)
     rng = np.random.default_rng(7)
     S = 16
-    cfg = LaneKernelConfig(batch=8 * 128, block=S, seq_cap=256, alpha=32,
-                           banks=1, trace=True, interpret=True)
-    run = data_parallel_lane(cfg, mesh)
     pairs = []
     for _ in range(16):
         n = int(rng.integers(10, 70))
@@ -55,22 +49,17 @@ def test_lane_kernel_trace_on_mesh():
             r[int(rng.integers(0, len(r)))] = int(rng.choice(list(AA)))
         pairs.append((q, bytes(r)))
     gaps = Gaps(open=-11, extend=-1)
-    args = pack_lane(pairs, BLOSUM62, cfg, gaps)
-    out, thbm, mhbm = run(*args)
-    out = np.asarray(out)
-    steps = out[:, 0, 1, 0]
-    nsteps = int(steps.max())
-    et = lane_trace(np.asarray(thbm[:, :nsteps]),
-                    np.asarray(mhbm[:, :nsteps]), steps, S)
-    scores = out[:, :, 0, :].reshape(cfg.batch)
+    al = BatchAligner(BLOSUM62, gaps, (S, S), batch=8 * 2, seq_cap=96,
+                      trace=True, mesh=mesh)
+    got = al.align_batch(pairs)
     a = BlockOracle(trace=True)
     for k, (q, r) in enumerate(pairs):
         pq = PaddedBytes.from_bytes(q, S, BLOSUM62)
         pr = PaddedBytes.from_bytes(r, S, BLOSUM62)
         a.align(pq, pr, BLOSUM62, gaps, (S, S), 0)
         w = a.res()
-        assert int(scores[k]) == w.score, k
-        assert str(et.cigar(k, w.query_idx, w.reference_idx)) == \
+        assert got[k].score == w.score, k
+        assert str(al.cigar(k, w.query_idx, w.reference_idx)) == \
             str(a.cigar(w.query_idx, w.reference_idx)), k
 
 
@@ -78,9 +67,6 @@ def test_lane_kernel_xdrop_on_mesh():
     mesh = make_mesh(8)
     rng = np.random.default_rng(13)
     S = 16
-    cfg = LaneKernelConfig(batch=8 * 128, block=S, seq_cap=256, alpha=32,
-                           banks=1, x_drop=True, interpret=True)
-    run = data_parallel_lane(cfg, mesh)
     pairs = []
     for _ in range(12):
         n = int(rng.integers(20, 80))
@@ -90,22 +76,20 @@ def test_lane_kernel_xdrop_on_mesh():
             r[int(rng.integers(0, len(r)))] = int(rng.choice(list(AA)))
         pairs.append((q, bytes(r)))
     gaps = Gaps(open=-11, extend=-1)
-    args = pack_lane(pairs, BLOSUM62, cfg, gaps, x_drop=50)
-    out = np.asarray(run(*args))
-    o2 = out[:, :, 0:3, :].transpose(0, 1, 3, 2).reshape(cfg.batch, 3)
+    al = BatchAligner(BLOSUM62, gaps, (S, S), batch=8 * 2, seq_cap=96,
+                      x_drop=50, mesh=mesh)
+    got = al.align_batch(pairs)
     a = BlockOracle(x_drop=True)
     for k, (q, r) in enumerate(pairs):
         pq = PaddedBytes.from_bytes(q, S, BLOSUM62)
         pr = PaddedBytes.from_bytes(r, S, BLOSUM62)
         a.align(pq, pr, BLOSUM62, gaps, (S, S), 50)
-        w = a.res()
-        assert (int(o2[k, 0]), int(o2[k, 1]), int(o2[k, 2])) == \
-            (w.score, w.query_idx, w.reference_idx), k
+        assert got[k] == a.res(), k
 
 
 def test_adaptive_kernel_on_mesh():
-    """Reference-exact adaptive kernel via BatchAligner(mesh=...)."""
-    from block_aligner_tpu.api import BatchAligner
+    """Reference-exact adaptive sizing via BatchAligner(mesh=...)."""
+    from block_aligner_jax.api import BatchAligner
 
     mesh = make_mesh(8)
     rng = np.random.default_rng(21)
@@ -118,9 +102,9 @@ def test_adaptive_kernel_on_mesh():
             r[int(rng.integers(0, len(r)))] = int(rng.choice(list(AA)))
         pairs.append((q, bytes(r)))
     gaps = Gaps(open=-11, extend=-1)
-    al = BatchAligner(BLOSUM62, gaps, (16, 32), batch=8 * 128, seq_cap=160,
+    al = BatchAligner(BLOSUM62, gaps, (16, 32), batch=8 * 4, seq_cap=160,
                       mesh=mesh)
-    assert al._adaptive
+    assert al.route == "engine"
     got = al.align_batch(pairs)
     a = BlockOracle()
     for k, (q, r) in enumerate(pairs):
@@ -132,12 +116,12 @@ def test_adaptive_kernel_on_mesh():
 
 def test_multihost_dryrun_subprocess():
     """N-host topology end to end: 2 processes x 4 virtual CPU devices,
-    jax.distributed + per-host feeding (scripts_tpu/multihost_dryrun.py)."""
+    jax.distributed + per-host feeding (scripts/multihost_dryrun.py)."""
     import subprocess
     import sys
     from pathlib import Path
 
-    script = Path(__file__).resolve().parent.parent / "scripts_tpu" / \
+    script = Path(__file__).resolve().parent.parent / "scripts" / \
         "multihost_dryrun.py"
     env = dict(__import__("os").environ)
     env.pop("XLA_FLAGS", None)  # workers set their own device counts
@@ -150,7 +134,7 @@ def test_multihost_dryrun_subprocess():
 def test_adaptive_trace_on_mesh():
     """Adaptive trace (ckpt event stream) sharded over the mesh: CIGARs
     must stay bit-exact per shard."""
-    from block_aligner_tpu.api import BatchAligner
+    from block_aligner_jax.api import BatchAligner
 
     mesh = make_mesh(8)
     rng = np.random.default_rng(3)
@@ -163,9 +147,9 @@ def test_adaptive_trace_on_mesh():
         for _ in range(n // 4):
             r[int(rng.integers(0, len(r)))] = int(rng.choice(list(AA)))
         pairs.append((q, bytes(r)))
-    al = BatchAligner(BLOSUM62, gaps, (16, 32), batch=8 * 128, seq_cap=160,
+    al = BatchAligner(BLOSUM62, gaps, (16, 32), batch=8 * 2, seq_cap=160,
                       trace=True, mesh=mesh)
-    assert al._adaptive and al._lane_cfg.trace
+    assert al.route == "engine" and al.cfg.trace
     got = al.align_batch(pairs)
     orc = BlockOracle(trace=True)
     for k, (q, r) in enumerate(pairs):
@@ -179,11 +163,10 @@ def test_adaptive_trace_on_mesh():
 
 
 def test_adaptive_profile_on_mesh():
-    """Profile-adaptive kernel sharded via ProfileAligner(mesh=...): the
-    VERDICT-r2 gap — adaptive PSSM configs must mesh-shard like every
-    other kernel path (profile args derive their shard specs from the
-    leading program dim in parallel/mesh.py::data_parallel_adaptive)."""
-    from block_aligner_tpu import AAProfile, ProfileAligner
+    """Profile-adaptive sizing sharded via ProfileAligner(mesh=...):
+    adaptive PSSM configs mesh-shard like every other path (the per-pair
+    gap-cost vectors shard with the batch)."""
+    from block_aligner_jax import AAProfile, ProfileAligner
 
     mesh = make_mesh(8)
     rng = np.random.default_rng(67)
@@ -217,8 +200,8 @@ def test_adaptive_profile_on_mesh():
         q = q[:pos] + bytes(rng.choice(list(AA), size=14).tolist()) + q[pos:]
         pairs.append((q, prof))
 
-    pa = ProfileAligner((16, 64), batch=8 * 128, seq_cap=200, mesh=mesh)
-    assert pa._adaptive
+    pa = ProfileAligner((16, 64), batch=8 * 2, seq_cap=200, mesh=mesh)
+    assert pa.route == "engine"
     got = pa.align_batch(pairs)
     orc = BlockOracle()
     for k, (q, prof) in enumerate(pairs):

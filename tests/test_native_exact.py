@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from block_aligner_tpu import AAProfile, BLOSUM62, Gaps, NW1
-from block_aligner_tpu.core import full_dp
-from block_aligner_tpu.native import load_exact
+from block_aligner_jax import AAProfile, BLOSUM62, Gaps, NW1
+from block_aligner_jax.core import full_dp
+from block_aligner_jax.native import load_exact
 
 AA = b"ACDEFGHIKLMNPQRSTVWY"
 DNA = b"ACGT"

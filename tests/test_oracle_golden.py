@@ -5,7 +5,7 @@ values."""
 
 import pytest
 
-from block_aligner_tpu import (
+from block_aligner_jax import (
     AAProfile,
     AlignResult,
     BlockOracle,
@@ -161,7 +161,7 @@ def test_bytes():
 
 def test_profile():
     a = BlockOracle()
-    from block_aligner_tpu import AAMatrix
+    from block_aligner_jax import AAMatrix
 
     r = AAProfile.from_bytes(b"AAAA", 16, 1, -1, -1, 0, -1, -1)
     q = pb(BLOSUM62, b"AAAA")

@@ -1,12 +1,12 @@
-"""Bounded differential soak in the routine suite (VERDICT r3 #6): 50
-fixed-seed random configurations through the public routing -- lane /
-adaptive / big kernels across matrices, gap costs, block ranges, and mode
-flags (x-drop, local-start, free-start-gaps, TRACE), plus segmented
-long-read rounds (LongBatchAligner / LongAdaptiveAligner, traced and
-untraced) -- every batch checked against the scalar oracle.
+"""Bounded differential soak in the routine suite: 56 fixed-seed random
+configurations through the public aligners -- fixed, adaptive and
+large-band ranges across matrices, gap costs, and mode flags (x-drop,
+local-start, free-start-gaps, TRACE), plus long-read rounds
+(LongBatchAligner / LongAdaptiveAligner, traced and untraced) and PSSM
+rounds -- every batch checked against the scalar oracle.
 
 The open-ended variant (run-until-killed, fresh seeds) lives in
-scripts_tpu/soak_fuzz.py; this file pins a reproducible slice of it.
+scripts/soak_fuzz.py; this file pins a reproducible slice of it.
 The reference's analogous coverage is the accuracy example's len x k
 sweep (reference: examples/accuracy.rs:17-34).
 """
@@ -19,7 +19,7 @@ import pytest
 sys.path.insert(
     0,
     os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 "scripts_tpu"),
+                 "scripts"),
 )
 
 from soak_fuzz import one_round, one_round_long, one_round_profile  # noqa: E402

@@ -1,18 +1,16 @@
-"""Render the full accuracy + bench figure set.
+"""Render the accuracy figure set.
 
 Mirrors the reference's two executed notebooks (reference:
 vis/block_aligner_accuracy_vis.ipynb, vis/block_aligner_bench_vis.ipynb
 and their saved PDFs: uniclust30_{scores,accuracy,percent_error,
 overall_accuracy,length_accuracy,seq_id_accuracy}, nanopore_10kbp_
-{scores,largest_gap}, pssm_{scores,accuracy}, random_dna_accuracy, and
-the bench bar charts), rendered with matplotlib from:
+{scores,largest_gap}, pssm_{scores,accuracy}, random_dna_accuracy),
+rendered with matplotlib from:
 
 * ``vis/data/*.csv`` -- per-pair records from
-  ``examples_tpu/accuracy_perpair.py`` (run it first);
+  ``examples/accuracy_perpair.py`` (run it first);
 * ``vis/data/random_accuracy.txt`` -- captured stdout of
-  ``examples_tpu/accuracy.py`` (optional);
-* ``RESULTS.md`` -- the measured staged/end-to-end rows for the bench
-  comparison bars.
+  ``examples/accuracy.py`` (optional).
 
 Usage: python vis/make_figs.py
 """
@@ -76,7 +74,7 @@ def uc_figs(rows):
             ax.set_title(f"{ds}  {sz}", fontsize=10)
             ax.set_xlabel("true score")
             ax.set_ylabel("pred score")
-    fig.suptitle("Uniclust30-style: our score vs true score (TPU)")
+    fig.suptitle("Uniclust30-style: our score vs true score")
     fig.tight_layout()
     save(fig, "uniclust30_scores.png")
 
@@ -288,50 +286,6 @@ def random_accuracy_fig():
     save(fig, "random_dna_accuracy.png")
 
 
-# ----------------------------------------------------------- bench bars
-def bench_figs():
-    """Grouped ours-vs-reference bars from RESULTS.md staged rows."""
-    path = HERE.parent / "RESULTS.md"
-    rows = []
-    for line in path.read_text().splitlines():
-        if not line.startswith("|") or "us/pair" in line or "---" in line:
-            continue
-        parts = [p.strip() for p in line.strip("|").split("|")]
-        if len(parts) < 5:
-            continue
-        try:
-            ours = float(parts[2])
-            ref = float(parts[3]) if parts[3] not in ("-", "") else None
-        except ValueError:
-            continue
-        rows.append((parts[0], ours, ref, parts[-1]))
-    groups = {
-        "uniclust30_bench.png": ("Protein pairs (µs/pair, log)",
-                                 ["uc30", "protein"]),
-        "dna_global_bench.png": ("DNA global (µs/pair, log)",
-                                 ["nanopore", "illumina", "kbp"]),
-        "pssm_size_bench.png": ("seq-PSSM (µs/pair, log)", ["PSSM"]),
-    }
-    for fname, (title, keys) in groups.items():
-        sel = [r for r in rows
-               if any(k.lower() in r[0].lower() for k in keys) and r[2]]
-        if not sel:
-            continue
-        fig, ax = plt.subplots(figsize=(max(6, 1.1 * len(sel)), 3.6))
-        x = np.arange(len(sel))
-        ax.bar(x - 0.2, [r[1] for r in sel], width=0.4,
-               label="this framework (TPU)")
-        ax.bar(x + 0.2, [r[2] for r in sel], width=0.4,
-               label="reference (AVX2 1 core)")
-        ax.set_yscale("log")
-        ax.set_ylabel("µs/pair")
-        ax.set_xticks(x, [r[0].replace(" 7000p", "\n")[:38] for r in sel],
-                      fontsize=6, rotation=20, ha="right")
-        ax.legend(fontsize=8)
-        ax.set_title(title)
-        save(fig, fname)
-
-
 def main():
     uc = read_csv("uc_accuracy.csv")
     if uc:
@@ -343,7 +297,6 @@ def main():
     if pssm:
         pssm_figs(pssm)
     random_accuracy_fig()
-    bench_figs()
     print("done", file=sys.stderr)
 
 
